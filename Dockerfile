@@ -1,11 +1,11 @@
 # CI-parity container: CPU-backend JAX, full test suite.
 # Mirrors the reference's Dockerfile role (/root/reference/Dockerfile:1-13 —
 # build + ctest), swapping cmake/ctest for pip/pytest.
-FROM python:3.11-slim
+FROM python:3.12-slim
 
 WORKDIR /work
 COPY pyproject.toml ./
-COPY moptimizer_0_tpu ./moptimizer_0_tpu
+COPY moptimizer_jax ./moptimizer_jax
 COPY tests ./tests
 COPY bench.py __graft_entry__.py ./
 

@@ -4,7 +4,7 @@
 all: native
 
 native:
-	$(MAKE) -C moptimizer_0_tpu/native
+	$(MAKE) -C moptimizer_jax/native
 
 test: native
 	python -m pytest tests/ -q
@@ -13,4 +13,4 @@ bench: native
 	python bench.py
 
 clean:
-	$(MAKE) -C moptimizer_0_tpu/native clean
+	$(MAKE) -C moptimizer_jax/native clean

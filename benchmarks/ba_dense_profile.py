@@ -11,7 +11,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import ba, ba_dense
+from moptimizer_jax import ba, ba_dense
 
 try:
     from benchmarks.ba_engines_ab import make_problem  # repo root: -m benchmarks.*

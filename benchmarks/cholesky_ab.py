@@ -1,18 +1,21 @@
-"""A/B: XLA Cholesky expander vs blocked MXU Cholesky (ops/block_cholesky).
+"""A/B: XLA Cholesky vs the blocked matmul Cholesky (ops/block_cholesky).
 
-Run on TPU. Measures the full SPD solve (factor + solve, what the dense-
-Schur BA engine pays per inner LM trial) at (6C)² sizes for C in
-{170, 340, 500, 1000, 2000, 3000}, plus the factor-only time. Prints a
-markdown table for docs/PERF.md and the measured crossover.
+    python benchmarks/cholesky_ab.py [C ...]
+
+Measures the full SPD solve (factor + solve, what the dense-Schur BA engine
+pays per inner LM trial) at (6C)² sizes, by default for C in {170, 340,
+500, 1000, 2000, 3000}, plus the factor-only time, in f32 at the library's
+default matmul precision. Prints a markdown table for PERF.md.
 """
 
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu.ops import block_cholesky
+from moptimizer_jax.ops import block_cholesky
 
 
 def bench(fn, *args, reps=5):
@@ -37,7 +40,8 @@ def main():
     )
 
     rows = []
-    for C in (170, 340, 500, 1000, 2000, 3000):
+    sizes = [int(a) for a in sys.argv[1:]] or [170, 340, 500, 1000, 2000, 3000]
+    for C in sizes:
         n = 6 * C
         rng = np.random.default_rng(C)
         A = rng.standard_normal((n, n)).astype(np.float32)

@@ -1,14 +1,11 @@
 """A/B microbench: _gn_blocks_grouped variants at the headline BA shape.
 
-The r5 stage budget (benchmarks/ba_dense_stages_slope.py) put gn_blocks at
-14 ms of the 23 ms outer step — ~7× its HBM floor (~600 MB of panel
-traffic). Candidates: matmul precision on the one-hot U/g contractions
-(library default is 'highest' = 6 bf16 passes), bf16 panel casts (halves
-the AtA/one-hot traffic, f32 accumulation — the schur_precision='default'
-trade applied to the U panel), and a chunked scan (bounds the live
-one-hot). Slope-measured; winner goes into ba_dense with a config knob.
+Candidates: matmul precision on the one-hot U/g contractions (library
+default is 'highest'), bf16 panel casts (halves the AtA/one-hot traffic,
+f32 accumulation — the schur_precision='default' trade applied to the U
+panel), and a chunked scan (bounds the live one-hot). Slope-measured.
 
-Run on TPU: python -m benchmarks.gn_blocks_ab
+Run on a GPU: python -m benchmarks.gn_blocks_ab
 """
 
 import time
@@ -18,7 +15,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from moptimizer_0_tpu import ba, ba_dense
+from moptimizer_jax import ba, ba_dense
 
 
 def slope(name, body, init, reps=3, k1=1, k2=5):

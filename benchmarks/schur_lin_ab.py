@@ -1,18 +1,12 @@
-"""A/B: Schur-build panel casts/chunking + linearize gather precision (r5).
+"""A/B: Schur-build panel casts/chunking + linearize gather precision.
 
-After the gn_precision fix the 16.8 ms outer step budgets as: schur 7.44,
-linearize 3.39, gn 2.52, cost 1.14, solve+backsub ~0.7 (+retries). This
-drives the next stages:
-
-  * build_schur: bf16 G/A2 panels (halves the 720 MB A2 materialization;
-    the matmul is already 1-pass bf16 at schur_precision='default') and a
+  * build_schur: bf16 G/A2 panels (halves the A2 materialization) and a
     larger scan chunk (fewer (6C)² carry round-trips).
   * linearize: the per-observation camera-cache "gather" is a one-hot
-    matmul at the library-wide 'highest' (6 passes); 'high' (3 passes)
-    reconstructs f32 products to ~2⁻²² — safe for residual VALUES, unlike
-    'default' whose bf16 rounding would perturb costs at 1e-2.
+    matmul at the library-wide 'highest'; a lower precision is safe only
+    if it keeps residual VALUES (costs) exact enough.
 
-Run on TPU: python -m benchmarks.schur_lin_ab
+Run on a GPU: python -m benchmarks.schur_lin_ab
 """
 
 import time
@@ -22,7 +16,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from moptimizer_0_tpu import ba, ba_dense
+from moptimizer_jax import ba, ba_dense
 
 
 def slope(name, body, init, reps=3, k1=1, k2=5):

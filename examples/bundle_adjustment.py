@@ -14,9 +14,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import ba
-from moptimizer_0_tpu.core.solver import Status
-from moptimizer_0_tpu.evaluation import ate_rmse
+from moptimizer_jax import ba
+from moptimizer_jax.core.solver import Status
+from moptimizer_jax.evaluation import ate_rmse
 
 
 def main():
@@ -61,9 +61,9 @@ def main():
     print(f"landmark ATE vs ground truth: {float(ate_rmse(res.points, gt_points)):.5f}")
 
     # At production scale prefer engine="auto": it routes to the dense-Schur
-    # MXU engine (explicit S + one Cholesky, valence-segmented observation
-    # grid — 106 outer-iters/s at O=500k, C=200, L=50k on one v5e chip;
-    # docs/PERF.md) while camera count / grid shape / HBM allow, and falls
+    # engine (explicit S + one Cholesky, valence-segmented observation
+    # grid;
+    # PERF.md) while camera count / grid shape / HBM allow, and falls
     # back to the matrix-free Schur-CG engine past those bounds:
     res_auto = ba.solve_ba(start, ba.BAConfig(max_iterations=30), engine="auto")
     print(f"engine='auto' final cost: {float(res_auto.cost):.3f}")

@@ -26,10 +26,10 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp  # noqa: E402
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt  # noqa: E402
-from moptimizer_0_tpu.core.residual import make_block, problem  # noqa: E402
-from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA  # noqa: E402
-from moptimizer_0_tpu.models.powell import powell_block  # noqa: E402
+from moptimizer_jax import LMConfig, levenberg_marquardt  # noqa: E402
+from moptimizer_jax.core.residual import make_block, problem  # noqa: E402
+from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA  # noqa: E402
+from moptimizer_jax.models.powell import powell_block  # noqa: E402
 
 
 def check(name, ours, scipys, tol):
@@ -91,7 +91,7 @@ def powell():
 def rational():
     """The rational model on the 7-point dataset of reference
     tst/simple_model.cpp:24-25 (minimum ≈ (0.362, 0.556))."""
-    from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+    from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
 
     x_data = np.asarray(SIMPLE_X)
     y_data = np.asarray(SIMPLE_Y)

@@ -13,10 +13,10 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax.numpy as jnp
 
-from moptimizer_0_tpu import LMConfig, Status, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import make_block, problem
-from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA
-from moptimizer_0_tpu.utils.logging import format_trace
+from moptimizer_jax import LMConfig, Status, levenberg_marquardt
+from moptimizer_jax.core.residual import make_block, problem
+from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA
+from moptimizer_jax.utils.logging import format_trace
 
 
 def residual(x, d):

@@ -1,13 +1,13 @@
 """Round-3 API tour: batched fleet registration + streaming fixed-lag SLAM.
 
-Self-checking (asserts); runs on CPU or TPU:
+Self-checking (asserts); runs on CPU or GPU:
 
     python examples/fleet_and_fixed_lag.py
 
 1. `registration.icp_batched` — B full ICP solves (per-iteration NN
-   correspondence updates) vmapped into ONE device program. On TPU this is
+   correspondence updates) vmapped into ONE device program. On a GPU this is
    the serving path: ~100× single-solve throughput on small clouds
-   (docs/PERF.md "batched solves").
+   (PERF.md "batched solves").
 2. `solve_multistart` — best-of-B starts at ~the cost of one solve.
 3. `odometry.scan_slam_fixed_lag` — streaming SLAM with bounded memory:
    the oldest pose Schur-marginalizes into a square-root prior instead of
@@ -23,12 +23,12 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from moptimizer_0_tpu import LMConfig, solve_multistart
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.lie import se3, so3
-from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
-from moptimizer_0_tpu.odometry import scan_slam_fixed_lag
-from moptimizer_0_tpu.registration import icp_batched
+from moptimizer_jax import LMConfig, solve_multistart
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.lie import se3, so3
+from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_jax.odometry import scan_slam_fixed_lag
+from moptimizer_jax.registration import icp_batched
 
 rng = np.random.default_rng(0)
 

@@ -4,7 +4,7 @@
 
 Loads a cloud (defaults to the bundled 29,310-point LiDAR scan), applies a
 known transform, shuffles the target (destroying index alignment), and
-recovers the transform with `moptimizer_0_tpu.registration.icp`.
+recovers the transform with `moptimizer_jax.registration.icp`.
 """
 
 import pathlib
@@ -18,11 +18,11 @@ import sys
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import GemanMcClure, Status
-from moptimizer_0_tpu.lie import se3
-from moptimizer_0_tpu.registration import icp
-from moptimizer_0_tpu.utils.pointcloud import load_txt_cloud
-from moptimizer_0_tpu.utils.stopwatch import Stopwatch
+from moptimizer_jax import GemanMcClure, Status
+from moptimizer_jax.lie import se3
+from moptimizer_jax.registration import icp
+from moptimizer_jax.utils.pointcloud import load_txt_cloud
+from moptimizer_jax.utils.stopwatch import Stopwatch
 
 
 def main():
@@ -36,7 +36,7 @@ def main():
     rng = np.random.default_rng(0)
     tgt = (src @ T[:3, :3].T + T[:3, 3])[rng.permutation(src.shape[0])]
 
-    from moptimizer_0_tpu import LMConfig
+    from moptimizer_jax import LMConfig
 
     sw = Stopwatch()
     sw.tick()

@@ -31,10 +31,10 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import ba
-from moptimizer_0_tpu.core.residual import make_block, problem
-from moptimizer_0_tpu.core.solver import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.lie import se3, so3
+from moptimizer_jax import ba
+from moptimizer_jax.core.residual import make_block, problem
+from moptimizer_jax.core.solver import LMConfig, levenberg_marquardt
+from moptimizer_jax.lie import se3, so3
 
 
 # ---- classical two-view geometry (host-side numpy; runs once) ------------

@@ -1,6 +1,6 @@
 """Worker for tests/test_multihost.py — 2-process distributed dense-Schur BA.
 
-Extends the curve-fitting multihost coverage (VERDICT r2 task 7) to the
+Extends the curve-fitting multihost coverage to the
 landmark-sharded dense-Schur engine: a real jax.distributed coordinator,
 a 4-device mesh spanning 2 processes, the (L, K) grid sharded along L with
 cross-process psums of the camera-space Schur objects. The distributed
@@ -28,8 +28,8 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from moptimizer_0_tpu import ba, ba_dense  # noqa: E402
-from moptimizer_0_tpu.parallel import multihost  # noqa: E402
+from moptimizer_jax import ba, ba_dense  # noqa: E402
+from moptimizer_jax.parallel import multihost  # noqa: E402
 
 multihost.initialize(
     coordinator_address=f"localhost:{port}", num_processes=2, process_id=proc_id

@@ -26,11 +26,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt  # noqa: E402
-from moptimizer_0_tpu.core.residual import make_block, problem  # noqa: E402
-from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA  # noqa: E402
-from moptimizer_0_tpu.parallel import multihost  # noqa: E402
-from moptimizer_0_tpu.parallel.sharded import (  # noqa: E402
+from moptimizer_jax import LMConfig, levenberg_marquardt  # noqa: E402
+from moptimizer_jax.core.residual import make_block, problem  # noqa: E402
+from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA  # noqa: E402
+from moptimizer_jax.parallel import multihost  # noqa: E402
+from moptimizer_jax.parallel.sharded import (  # noqa: E402
     distributed_levenberg_marquardt,
 )
 

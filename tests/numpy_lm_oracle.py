@@ -1,11 +1,11 @@
-"""Standalone pure-numpy Levenberg-Marquardt oracle (VERDICT r3 task 2).
+"""Standalone pure-numpy Levenberg-Marquardt oracle.
 
 An INDEPENDENT implementation of the reference solver, written directly
 from /root/reference/src/levenberg_marquadt_dyn.cpp:34-119 (schedule),
 include/moptimizer/linearization.h:78-116 (forward-difference scheme +
 H,b accumulation), optimizer.h:26-29 and delta.h:12-16 (convergence
 predicates), and types.h:6-12 (status codes). It imports NOTHING from
-moptimizer_0_tpu except embedded public DATASETS (the Ceres curve data,
+moptimizer_jax except embedded public DATASETS (the Ceres curve data,
 the simple-model table, the gravity constant) — every line of solver and
 model arithmetic here is re-derived from the reference sources, so the
 golden trace fixtures are cross-validated by a second implementation
@@ -198,7 +198,7 @@ def numpy_lm(residual, x0, max_iterations=15, inner_iterations=3):
 
 def _curve_residual():
     # dataset only (the public Ceres exponential data both codebases embed)
-    from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA
+    from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA
 
     data = np.asarray(CERES_CURVE_DATA, np.float64)
 
@@ -224,7 +224,7 @@ def _powell_residual():
 
 def _rational_residual():
     # dataset only (tst/test_models.h:12-14 table)
-    from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y
+    from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y
 
     xd = np.asarray(SIMPLE_X, np.float64)
     yd = np.asarray(SIMPLE_Y, np.float64)

@@ -7,8 +7,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import ba
-from moptimizer_0_tpu.core.solver import Status
+from moptimizer_jax import ba
+from moptimizer_jax.core.solver import Status
 
 
 def make_synthetic_ba(C=4, L=30, noise=0.0, seed=0, n_fixed=2, dtype=jnp.float64):
@@ -121,7 +121,7 @@ def test_ba_sharded_observations_match():
     """Observation axis sharded over 8 devices (GSPMD) ≡ single device."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from moptimizer_0_tpu.parallel import make_mesh
+    from moptimizer_jax.parallel import make_mesh
 
     start, _ = make_synthetic_ba(C=4, L=32, n_fixed=2, seed=6)  # O = 128
     res_single = ba.solve_ba(start, ba.BAConfig(max_iterations=10))
@@ -144,7 +144,7 @@ def test_ba_sharded_observations_match():
 def test_ba_robust_loss_downweights_outliers():
     """A handful of corrupted pixel observations: Geman-McClure BA stays near
     ground truth; unweighted BA is dragged off."""
-    from moptimizer_0_tpu import GemanMcClure
+    from moptimizer_jax import GemanMcClure
 
     start, gt = make_synthetic_ba(C=5, L=40, n_fixed=2, seed=7)
     rng = np.random.default_rng(8)

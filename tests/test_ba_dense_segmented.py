@@ -15,7 +15,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from moptimizer_0_tpu import ba, ba_dense
+from moptimizer_jax import ba, ba_dense
 
 from test_ba import make_synthetic_ba
 

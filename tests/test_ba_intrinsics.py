@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import ba, ba_intrinsics
+from moptimizer_jax import ba, ba_intrinsics
 from tests.test_ba import make_synthetic_ba
 import pytest
 

@@ -1,9 +1,9 @@
 """Batched LM: B independent same-structure solves in one device program.
 
 No reference counterpart (the C++ library solves one problem per
-`minimize` call); on TPU, vmapping the whole solver turns per-instance
+`minimize` call); on the device, vmapping the whole solver turns per-instance
 accept/reject control flow into masking and lets small problems share one
-dispatch — the serving-throughput path (docs/PERF.md "batched solves").
+dispatch — the serving-throughput path (PERF.md "batched solves").
 Correctness contract: every batched instance must match its individual
 solve exactly (the vmapped while_loop freezes finished instances via
 select, preserving their state up to f64 round-off — vmap changes
@@ -14,14 +14,14 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import (
+from moptimizer_jax import (
     LMConfig,
     Status,
     levenberg_marquardt,
     levenberg_marquardt_batched,
 )
-from moptimizer_0_tpu.core.residual import make_block, problem
-from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA
+from moptimizer_jax.core.residual import make_block, problem
+from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA
 
 
 def _residual(x, d):
@@ -67,7 +67,7 @@ def test_batched_matches_individual_solves():
 def test_batched_none_data_block_replicates():
     """A data=None block (single residual over the state) batches over x0
     only — the Powell problem from 3 different starts."""
-    from moptimizer_0_tpu.models.powell import powell_block
+    from moptimizer_jax.models.powell import powell_block
 
     x0s = jnp.asarray(
         [[3.0, -1.0, 0.0, 4.0], [1.0, 1.0, 1.0, 1.0], [-2.0, 3.0, 0.5, -1.5]],
@@ -89,8 +89,8 @@ def test_batched_none_data_block_replicates():
 def test_multistart_picks_best_basin():
     """Rational fit: some starts find the (0.362, 0.556) basin, some find a
     worse stationary point or blow up; multistart returns the global one."""
-    from moptimizer_0_tpu import solve_multistart
-    from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+    from moptimizer_jax import solve_multistart
+    from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
 
     blk = rational_block(SIMPLE_X, SIMPLE_Y, analytic=True, dtype=jnp.float64)
     x0s = jnp.asarray(
@@ -113,8 +113,8 @@ def test_icp_batched_with_nn_update():
     """registration.icp_batched: B FULL ICP solves (per-iteration NN
     correspondence search) in one program, each matching its individual
     icp() solve."""
-    from moptimizer_0_tpu.lie import se3
-    from moptimizer_0_tpu.registration import icp, icp_batched
+    from moptimizer_jax.lie import se3
+    from moptimizer_jax.registration import icp, icp_batched
 
     rng = np.random.default_rng(15)
     B, N = 3, 1500
@@ -158,8 +158,8 @@ def test_icp_batched_with_nn_update():
 def test_batched_icp_point2point():
     """B=3 known-correspondence scan alignments in one program (the
     bench.py workload, batched): each recovers its own transform."""
-    from moptimizer_0_tpu.lie import se3
-    from moptimizer_0_tpu.models.point2point import point2point_block
+    from moptimizer_jax.lie import se3
+    from moptimizer_jax.models.point2point import point2point_block
 
     rng = np.random.default_rng(13)
     B, N = 3, 5000

@@ -1,4 +1,4 @@
-"""Blocked MXU Cholesky (ops/block_cholesky.py) vs the XLA expander.
+"""Blocked matmul Cholesky (ops/block_cholesky.py) vs XLA's Cholesky.
 
 The blocked factorization must be numerically interchangeable with
 jnp.linalg.cholesky — same factor (Cholesky is unique for SPD), same
@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import ba_dense
-from moptimizer_0_tpu.ops import block_cholesky
+from moptimizer_jax import ba_dense
+from moptimizer_jax.ops import block_cholesky
 
 from test_ba import make_synthetic_ba
 

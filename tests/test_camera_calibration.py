@@ -4,9 +4,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models.camera import camera_reprojection_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models.camera import camera_reprojection_block
 
 # Reference fixture data (tst/camera_calibration.cpp:66-76).
 POINTS = np.array(

@@ -3,9 +3,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models import exponential_curve_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models import exponential_curve_block
 
 
 def test_initial_condition_1():

@@ -5,10 +5,10 @@ retries, SURVEY.md §2.4.3). Here CI asserts bitwise-reproducible H,b."""
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu.core.linearize import compute_cost, linearize
-from moptimizer_0_tpu.lie import se3
-from moptimizer_0_tpu.models.point2point import point2point_block
-from moptimizer_0_tpu.parallel import make_mesh, sharded_linearize
+from moptimizer_jax.core.linearize import compute_cost, linearize
+from moptimizer_jax.lie import se3
+from moptimizer_jax.models.point2point import point2point_block
+from moptimizer_jax.parallel import make_mesh, sharded_linearize
 import pytest
 
 

@@ -3,12 +3,12 @@
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt, lm_step
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.evaluation import ate_rmse, rpe, umeyama_alignment
-from moptimizer_0_tpu.lie import se3, so3
-from moptimizer_0_tpu.models.point2plane import point2plane_block
-from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_jax import LMConfig, levenberg_marquardt, lm_step
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.evaluation import ate_rmse, rpe, umeyama_alignment
+from moptimizer_jax.lie import se3, so3
+from moptimizer_jax.models.point2plane import point2plane_block
+from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
 
 
 def test_umeyama_recovers_transform():
@@ -59,7 +59,7 @@ def test_point2plane_converges():
 
 
 def test_point2plane_analytic_matches_ad_at_identity():
-    from moptimizer_0_tpu.core.linearize import linearize
+    from moptimizer_jax.core.linearize import linearize
 
     rng = np.random.default_rng(4)
     src = rng.uniform(0, 5, size=(100, 3))

@@ -4,12 +4,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import GemanMcClure, LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import linearize
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.lie import se3
-from moptimizer_0_tpu.models.point2point import point2point_block
-from moptimizer_0_tpu.ops.icp_linearize import icp_linearize
+from moptimizer_jax import GemanMcClure, LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import linearize
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.lie import se3
+from moptimizer_jax.models.point2point import point2point_block
+from moptimizer_jax.ops.icp_linearize import icp_linearize
 
 
 @pytest.fixture(scope="module")
@@ -41,11 +41,11 @@ def test_fused_with_validity_mask(clouds):
     x = jnp.asarray([0.1, 0.0, 0.0, 0.02, 0.0, 0.0])
     valid = jnp.arange(src.shape[0]) % 3 != 0
 
-    c_f, H_f, b_f = icp_linearize(src, tgt, x, __import__("moptimizer_0_tpu").TrivialLoss(), valid=valid)
+    c_f, H_f, b_f = icp_linearize(src, tgt, x, __import__("moptimizer_jax").TrivialLoss(), valid=valid)
 
     # generic path with the same mask via tuple-return residual
-    from moptimizer_0_tpu.core.residual import make_block
-    from moptimizer_0_tpu.models.point2point import _prepare
+    from moptimizer_jax.core.residual import make_block
+    from moptimizer_jax.models.point2point import _prepare
 
     def residual(T, d):
         return T[:3, :3] @ d["src"] + T[:3, 3] - d["tgt"], d["valid"]

@@ -9,8 +9,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import lie
-from moptimizer_0_tpu.lie import so3
+from moptimizer_jax import lie
+from moptimizer_jax.lie import so3
 
 
 RNG = np.random.default_rng(0)

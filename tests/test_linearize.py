@@ -9,12 +9,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import GemanMcClure, LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import compute_cost, linearize
-from moptimizer_0_tpu.core.residual import make_block, problem
-from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
-from moptimizer_0_tpu.models.powell import powell_block
-from moptimizer_0_tpu.models.accelerometer import accelerometer_block
+from moptimizer_jax import GemanMcClure, LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import compute_cost, linearize
+from moptimizer_jax.core.residual import make_block, problem
+from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_jax.models.powell import powell_block
+from moptimizer_jax.models.accelerometer import accelerometer_block
 
 # differentiation.cpp uses a 9-point extension of the simple dataset (:48-49)
 DIFF_X = [0.038, 0.194, 0.425, 0.626, 1.253, 2.5, 3.70, 5, 0]
@@ -149,7 +149,7 @@ def test_fd_matches_reference_step_rule():
     J_manual = np.stack(
         [(r(x0 + h[j] * np.eye(2)[j]) - r(x0)) / h[j] for j in range(2)], axis=-1
     )[:, None, :]
-    from moptimizer_0_tpu.core.linearize import _batched_residuals, _jacobian_fd
+    from moptimizer_jax.core.linearize import _batched_residuals, _jacobian_fd
 
     r0, _ = _batched_residuals(blk, jnp.asarray(x0))
     J = _jacobian_fd(blk, jnp.asarray(x0), r0)
@@ -162,7 +162,7 @@ def test_per_residual_weight_matrices():
     import numpy as _np
 
     rng = _np.random.default_rng(12)
-    from moptimizer_0_tpu.models.point2point import point2point_block
+    from moptimizer_jax.models.point2point import point2point_block
 
     src = jnp.asarray(rng.uniform(0, 5, (50, 3)))
     tgt = jnp.asarray(rng.uniform(0, 5, (50, 3)))
@@ -175,7 +175,7 @@ def test_per_residual_weight_matrices():
     c, H, b = linearize(blk, x0, mode="auto")
 
     # oracle: loop accumulation
-    from moptimizer_0_tpu.core.linearize import _batched_residuals, _jacobian_auto
+    from moptimizer_jax.core.linearize import _batched_residuals, _jacobian_auto
 
     r, _ = _batched_residuals(blk, x0)
     J = _jacobian_auto(blk, x0)

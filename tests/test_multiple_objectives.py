@@ -4,10 +4,10 @@ splitting 67 residuals into 30+37 blocks yields the same trajectory to 1e-8."""
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import linearize
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models.curve_fitting import CERES_CURVE_DATA, exponential_curve_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import linearize
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models.curve_fitting import CERES_CURVE_DATA, exponential_curve_block
 
 
 def test_split_cost_same_minimum():
@@ -63,7 +63,7 @@ def test_trace_block_costs():
     np.testing.assert_allclose(bc[:n].sum(axis=1), total[:n], rtol=1e-12)
     assert np.all(bc[:n] > 0)
     # the rendered trace carries the per-block column
-    from moptimizer_0_tpu.utils.logging import format_trace
+    from moptimizer_jax.utils.logging import format_trace
 
     txt = format_trace(res)
     assert "block_costs" in txt.splitlines()[0]

@@ -6,7 +6,7 @@ import subprocess
 import numpy as np
 import pytest
 
-import moptimizer_0_tpu.native as native
+import moptimizer_jax.native as native
 
 DATA = pathlib.Path(__file__).parent / "data" / "fachada.txt"
 NATIVE_DIR = pathlib.Path(native.__file__).parent

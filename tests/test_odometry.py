@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu.evaluation import ate_rmse
-from moptimizer_0_tpu.lie import se3, so3
-from moptimizer_0_tpu.odometry import scan_odometry, scan_slam
-from moptimizer_0_tpu.core.solver import LMConfig
+from moptimizer_jax.evaluation import ate_rmse
+from moptimizer_jax.lie import se3, so3
+from moptimizer_jax.odometry import scan_odometry, scan_slam
+from moptimizer_jax.core.solver import LMConfig
 
 
 def _structured_scene(rng, n=3000):

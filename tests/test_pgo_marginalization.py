@@ -15,8 +15,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import pose_graph as pgo
-from moptimizer_0_tpu.lie import se3, so3
+from moptimizer_jax import pose_graph as pgo
+from moptimizer_jax.lie import se3, so3
 
 
 def _compose(a, b):
@@ -137,9 +137,9 @@ def test_fixed_lag_slam_tracks_batch_odometry():
     sys.path.insert(0, str(Path(__file__).parent))
     from test_slam_sequence import ATE_ODOMETRY_BOUND, make_sequence
 
-    from moptimizer_0_tpu.core.solver import LMConfig
-    from moptimizer_0_tpu.evaluation import ate_rmse
-    from moptimizer_0_tpu.odometry import scan_slam_fixed_lag
+    from moptimizer_jax.core.solver import LMConfig
+    from moptimizer_jax.evaluation import ate_rmse
+    from moptimizer_jax.odometry import scan_slam_fixed_lag
 
     scans, gt = make_sequence()
     cfg = LMConfig(diff_mode="auto", max_iterations=40)

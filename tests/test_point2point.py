@@ -7,12 +7,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import linearize
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.lie import se3, so3
-from moptimizer_0_tpu.models.point2point import point2point_block
-from moptimizer_0_tpu.utils.pointcloud import load_txt_cloud
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import linearize
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.lie import se3, so3
+from moptimizer_jax.models.point2point import point2point_block
+from moptimizer_jax.utils.pointcloud import load_txt_cloud
 
 DATA = pathlib.Path(__file__).parent / "data" / "fachada.txt"
 

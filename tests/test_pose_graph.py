@@ -6,8 +6,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import pose_graph as pgo
-from moptimizer_0_tpu.lie import se3, so3
+from moptimizer_jax import pose_graph as pgo
+from moptimizer_jax.lie import se3, so3
 import pytest
 
 
@@ -111,7 +111,7 @@ def test_information_weighting():
 def test_pgo_robust_loss_survives_bad_loop_closure():
     """One grossly wrong loop-closure edge: Geman-McClure keeps the solution
     near ground truth; plain least squares is dragged off."""
-    from moptimizer_0_tpu import GemanMcClure
+    from moptimizer_jax import GemanMcClure
 
     graph, gt = make_ring_graph(N=12, drift=0.01, seed=5)
     meas = np.array(graph.measurements)
@@ -137,7 +137,7 @@ def test_pgo_robust_loss_survives_bad_loop_closure():
 
 def test_huber_cauchy_losses():
     """Huber/Cauchy IRLS weights: 1 in the inlier region, decaying beyond."""
-    from moptimizer_0_tpu import Cauchy, Huber
+    from moptimizer_jax import Cauchy, Huber
 
     h = Huber(delta=jnp.asarray(2.0))
     np.testing.assert_allclose(h.weight(jnp.asarray(1.0)), 1.0)
@@ -172,7 +172,7 @@ def test_pgo_cg_large_graph():
 
 
 def test_pgo_prior_dominant_graph_not_falsely_converged():
-    """ADVICE r3 (high): y0 used edge-only cost while the trial cost included
+    """Regression: y0 used edge-only cost while the trial cost included
     the PGOPrior term, so a prior-dominant graph (edges near-satisfied,
     nonzero prior offset) returned CONVERGED after 0 iterations at the
     initial point. y0 must be compute_cost (edges + prior)."""

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models.powell import powell_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models.powell import powell_block
 
 X0 = jnp.array([3.0, -1.0, 0.0, 4.0])
 CFG = dict(max_iterations=25)

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import linearize
-from moptimizer_0_tpu.core.prior import marginalize, prior_block
-from moptimizer_0_tpu.core.residual import Problem, make_block, problem
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import linearize
+from moptimizer_jax.core.prior import marginalize, prior_block
+from moptimizer_jax.core.residual import Problem, make_block, problem
 
 
 def _linear_problem(A, y):

@@ -1,13 +1,15 @@
 """ICP with real correspondence search (no index alignment) + NN kernel tests."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu.lie import se3
-from moptimizer_0_tpu.ops.nn_search import _nn_pallas, _nn_xla, nearest_neighbors
-from moptimizer_0_tpu.registration import icp
-from moptimizer_0_tpu import GemanMcClure
+from moptimizer_jax.lie import se3
+from moptimizer_jax.ops import nn_search
+from moptimizer_jax.ops.nn_search import _nn_pallas, _nn_xla, nearest_neighbors
+from moptimizer_jax.registration import icp
+from moptimizer_jax import GemanMcClure
 
 
 @pytest.fixture(scope="module")
@@ -31,32 +33,57 @@ def test_nn_xla_matches_numpy():
     np.testing.assert_allclose(dist, d2.min(1), rtol=1e-4, atol=1e-4)
 
 
-def test_nn_pallas_interpret_matches_numpy():
-    """Kernel logic validated in interpreter mode (runs on CPU)."""
-    rng = np.random.default_rng(6)
-    q = jnp.asarray(rng.uniform(0, 10, (600, 3)), jnp.float32)
-    p = jnp.asarray(rng.uniform(0, 10, (1100, 3)), jnp.float32)
-    d2 = ((np.asarray(q)[:, None] - np.asarray(p)[None]) ** 2).sum(-1)
-    idx, dist = _nn_pallas(q, p, block_q=256, block_p=512, interpret=True)
-    np.testing.assert_array_equal(idx, d2.argmin(1))
-    np.testing.assert_allclose(dist, d2.min(1), rtol=1e-4, atol=1e-4)
-
-
 def test_nn_pallas_vpu_interpret_matches_numpy():
-    """The r4 VPU direct-difference kernel (the TPU default): exact f32
-    distances, tile-boundary accumulation, non-aligned sizes."""
-    from moptimizer_0_tpu.ops.nn_search import _nn_pallas_vpu
-
+    """The Triton kernel in interpret mode: exact f32 distances, the
+    running min across many target tiles, aligned and non-aligned sizes."""
     rng = np.random.default_rng(8)
-    q = jnp.asarray(rng.uniform(0, 10, (600, 3)), jnp.float32)
-    p = jnp.asarray(rng.uniform(0, 10, (1100, 3)), jnp.float32)
+    q = jnp.asarray(rng.uniform(0, 10, (640, 3)), jnp.float32)
+    p = jnp.asarray(rng.uniform(0, 10, (1152, 3)), jnp.float32)
     d2 = ((np.asarray(q)[:, None] - np.asarray(p)[None]) ** 2).sum(-1)
-    idx, dist = _nn_pallas_vpu(q, p, block_q=256, block_p=512, interpret=True)
+    idx, dist = _nn_pallas(q, p, interpret=True)
     np.testing.assert_array_equal(idx, d2.argmin(1))
     np.testing.assert_allclose(dist, d2.min(1), rtol=1e-5, atol=1e-6)
     # non-aligned
-    idx2, _ = _nn_pallas_vpu(q[:33], p[:77], block_q=256, block_p=512, interpret=True)
+    idx2, _ = _nn_pallas(q[:33], p[:77], interpret=True)
     np.testing.assert_array_equal(idx2, d2[:33, :77].argmin(1))
+
+
+def _nn_case(name):
+    """(query, points, expected first-argmin indices) of one kernel case."""
+    rng = np.random.default_rng(21)
+    if name == "ragged_query":  # Q not a multiple of the query block
+        q = rng.uniform(0, 5, (nn_search.BLOCK_Q * 3 + 5, 3))
+        p = rng.uniform(0, 5, (nn_search.BLOCK_P * 2, 3))
+    elif name == "padding_never_wins":  # one real point, the rest padding
+        q = rng.uniform(-1e3, 1e3, (40, 3))
+        p = rng.uniform(0, 5, (1, 3))
+    elif name == "far_queries":  # real points far away still beat padding
+        q = rng.uniform(1e3, 2e3, (40, 3))
+        p = rng.uniform(-100, 100, (nn_search.BLOCK_P + 3, 3))
+    elif name == "exact_ties_first_index":  # duplicates inside one tile
+        base = rng.uniform(0, 5, (20, 3))
+        p = np.concatenate([base, base, base])
+        q = base + 0.01
+    else:  # "ties_across_tiles": a duplicate several tiles later
+        base = rng.uniform(0, 5, (nn_search.BLOCK_P, 3))
+        p = np.concatenate([base, rng.uniform(50, 60, (nn_search.BLOCK_P * 2, 3)), base])
+        q = base[::-1] + 0.01
+    q, p = q.astype(np.float32), p.astype(np.float32)
+    d2 = ((q[:, None].astype(np.float64) - p[None]) ** 2).sum(-1)
+    return q, p, d2.argmin(1)  # numpy argmin: first index of the minimum
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["ragged_query", "padding_never_wins", "far_queries", "exact_ties_first_index",
+     "ties_across_tiles"],
+)
+def test_nn_kernel_interpret_cases(case):
+    q, p, expect = _nn_case(case)
+    idx, dist = _nn_pallas(jnp.asarray(q), jnp.asarray(p), interpret=True)
+    np.testing.assert_array_equal(idx, expect)
+    assert np.all(np.isfinite(np.asarray(dist)))
+    assert np.all(np.asarray(idx) < len(p))
 
 
 def test_nn_unequal_sizes_and_padding():
@@ -66,8 +93,46 @@ def test_nn_unequal_sizes_and_padding():
     d2 = ((np.asarray(q)[:, None] - np.asarray(p)[None]) ** 2).sum(-1)
     idx, _ = nearest_neighbors(q, p, backend="xla")
     np.testing.assert_array_equal(idx, d2.argmin(1))
-    idx2, _ = _nn_pallas(q, p, block_q=256, block_p=512, interpret=True)
+    idx2, _ = _nn_pallas(q, p, interpret=True)
     np.testing.assert_array_equal(idx2, d2.argmin(1))
+
+
+@pytest.mark.parametrize(
+    "backend, interpret, expect",
+    [("auto", False, "xla"), ("xla", False, "xla"), ("pallas", True, "pallas"),
+     ("pallas", False, ValueError), ("bogus", False, ValueError)],
+)
+def test_nn_dispatch_off_gpu(monkeypatch, backend, interpret, expect):
+    """Off a GPU, "auto" is the XLA scan; the kernel runs only when asked
+    for with interpret=True — never a quiet interpretation or fallback."""
+    assert jax.default_backend() == "cpu"
+    calls = []
+    monkeypatch.setattr(nn_search, "_nn_xla", lambda q, p, chunk: calls.append("xla"))
+    monkeypatch.setattr(
+        nn_search, "_nn_pallas", lambda q, p, interpret: calls.append("pallas")
+    )
+    q = jnp.zeros((4, 3), jnp.float32)
+    if expect is ValueError:
+        with pytest.raises(ValueError):
+            nearest_neighbors(q, q, backend=backend, interpret=interpret)
+        assert calls == []
+    else:
+        nearest_neighbors(q, q, backend=backend, interpret=interpret)
+        assert calls == [expect]
+
+
+@pytest.mark.gpu
+def test_nn_kernel_on_gpu():
+    """The compiled kernel (not the interpreter) against numpy."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: the Triton kernel is compiled only for the card")
+    rng = np.random.default_rng(9)
+    q = rng.uniform(0, 10, (3000, 3)).astype(np.float32)
+    p = rng.uniform(0, 10, (5000, 3)).astype(np.float32)
+    d2 = ((q[:, None].astype(np.float64) - p[None]) ** 2).sum(-1)
+    idx, dist = nearest_neighbors(jnp.asarray(q), jnp.asarray(p), backend="auto")
+    np.testing.assert_array_equal(idx, d2.argmin(1))
+    np.testing.assert_allclose(dist, d2.min(1), rtol=1e-5, atol=1e-6)
 
 
 def test_icp_unknown_correspondences(scene):
@@ -103,7 +168,7 @@ def test_icp_with_outliers_and_robust_loss(scene):
 def test_gicp_unknown_correspondences(scene):
     """GICP (per-point covariances, state-dependent information) recovers the
     transform from a shuffled target cloud."""
-    from moptimizer_0_tpu.registration import gicp
+    from moptimizer_jax.registration import gicp
 
     src, tgt_shuffled, x_true, T_true = scene
     res = gicp(src, tgt_shuffled, nn_backend="xla", k=8)
@@ -115,7 +180,7 @@ def test_gicp_unknown_correspondences(scene):
 
 def test_surface_normals_and_covariances():
     """PCA normals on a synthetic plane point along its true normal."""
-    from moptimizer_0_tpu.ops.surface import estimate_normals, gicp_covariances
+    from moptimizer_jax.ops.surface import estimate_normals, gicp_covariances
 
     rng = np.random.default_rng(20)
     # plane z = 0.3x + 0.1y with small jitter
@@ -136,7 +201,7 @@ def test_surface_normals_and_covariances():
     assert abs(v[:, 0] @ n_true) > 0.99
 
 
-# ---- point-to-plane front-end (r4, VERDICT r3 missing #3) -----------------
+# ---- point-to-plane front-end ---------------------------------------------
 
 
 def _surface_scene(seed=21, n=6000):
@@ -154,7 +219,7 @@ def _surface_scene(seed=21, n=6000):
 
 
 def test_point2plane_recovers_transform():
-    from moptimizer_0_tpu.registration import point2plane
+    from moptimizer_jax.registration import point2plane
 
     src, tgt, x_true = _surface_scene()
     res = point2plane(src, tgt, nn_backend="xla", max_corr_dist=0.5)
@@ -164,8 +229,8 @@ def test_point2plane_recovers_transform():
 def test_point2plane_registrar_and_register_pair():
     """method='point2plane' through PairwiseRegistrar and the pipeline API;
     compile-once across same-shape pairs."""
-    from moptimizer_0_tpu.odometry import register_pair
-    from moptimizer_0_tpu.registration import PairwiseRegistrar
+    from moptimizer_jax.odometry import register_pair
+    from moptimizer_jax.registration import PairwiseRegistrar
 
     src, tgt, x_true = _surface_scene(seed=22)
     reg = PairwiseRegistrar(
@@ -187,7 +252,7 @@ def test_point2plane_beats_point2point_on_smooth_surface():
     """On a smooth low-noise surface with sliding-prone geometry,
     point-to-plane converges at least as accurately as point-to-point from
     the same start — the reason the variant exists."""
-    from moptimizer_0_tpu.registration import icp, point2plane
+    from moptimizer_jax.registration import icp, point2plane
 
     rng = np.random.default_rng(24)
     xy = rng.uniform(0, 12, (6000, 2))
@@ -215,9 +280,9 @@ def test_coarse_multistart_recovers_large_yaw():
     """coarse_multistart (r4): at 60° inter-scan yaw the single-start
     coarse pass lands in a wrong basin and the solve fails outright; 8
     yaw-rotated starts solved in one batched program recover exactly
-    (the measured first-pair failure mode of docs/PERF.md's p2plane
+    (the measured first-pair failure mode of PERF.md's p2plane
     section, fixed at the seeding level)."""
-    from moptimizer_0_tpu.registration import PairwiseRegistrar
+    from moptimizer_jax.registration import PairwiseRegistrar
 
     rng = np.random.default_rng(41)
     per = 1200

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu.ops.segmented import (
+from moptimizer_jax.ops.segmented import (
     gather_onehot,
     required_span,
     segment_sum_onehot,

@@ -1,7 +1,7 @@
 """Incremental SfM example (examples/sfm_reconstruct.py) — counterpart of
 the reference's experimental OpenCV reconstruction driver
 (experimental/src/scene_reconstruct.cpp:45-62), closing the last
-component-inventory row (VERDICT r3 missing #2). Small instance for CI."""
+component-inventory row. Small instance for CI."""
 
 import pathlib
 import sys

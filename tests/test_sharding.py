@@ -8,12 +8,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.linearize import compute_cost, linearize
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.lie import se3
-from moptimizer_0_tpu.models.point2point import point2point_block
-from moptimizer_0_tpu.parallel import (
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.linearize import compute_cost, linearize
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.lie import se3
+from moptimizer_jax.models.point2point import point2point_block
+from moptimizer_jax.parallel import (
     distributed_levenberg_marquardt,
     make_mesh,
     pad_block_to,
@@ -115,9 +115,9 @@ def test_distributed_lm_matches_single_device(cloud_pair):
 
 def test_icp_batched_sharded_matches_single_device():
     """Fleet ICP with the batch axis sharded over the 8-device mesh equals
-    the single-device vmapped path per lane (VERDICT r4 task 8 — the
+    the single-device vmapped path per lane (the
     serving-workload form of the SURVEY §2.3 DP plan)."""
-    from moptimizer_0_tpu.registration import icp_batched
+    from moptimizer_jax.registration import icp_batched
 
     rng = np.random.default_rng(7)
     B, N = 8, 256

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
 
 
 @pytest.mark.parametrize("x0", [(0.9, 0.2), (1.9, 1.5)])

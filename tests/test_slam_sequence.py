@@ -11,19 +11,19 @@ all — its closest analogue is the single-pair fachada registration
 (/root/reference/tst/point2point.cpp); this extends that to the trajectory
 scale the domain actually cares about.
 
-Wall-clock numbers for this pipeline (frames/s on TPU) are recorded in
-docs/PERF.md via benchmarks/slam_sequence_bench.py, which drives the same
-`make_sequence` world.
+benchmarks/slam_sequence_bench.py times this pipeline on the same world
+at production scale; chip_smoke.py's slam phase checks these ATE bounds
+on the GPU at 16 scans of 32,768 points.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu.core.solver import LMConfig, Status
-from moptimizer_0_tpu.evaluation import ate_rmse, rpe
-from moptimizer_0_tpu.lie import se3, so3
-from moptimizer_0_tpu.odometry import scan_odometry, scan_slam
+from moptimizer_jax.core.solver import LMConfig, Status
+from moptimizer_jax.evaluation import ate_rmse, rpe
+from moptimizer_jax.lie import se3, so3
+from moptimizer_jax.odometry import scan_odometry, scan_slam
 
 pytestmark = pytest.mark.slow  # heavy module: excluded from the default run
 
@@ -146,7 +146,7 @@ def test_rpe_bounded(sequence_results):
 def test_slam_with_noise_floor_stopping_matches_ate():
     """The r4 practical stopping rule (rel_cost_tol, the pipeline default)
     must hit the same pinned ATE bounds in far fewer LM iterations than the
-    parity-semantics run (VERDICT r3 task 3: 'equal pinned ATE')."""
+    parity-semantics run (equal pinned ATE)."""
     scans, gt = make_sequence()
     cfg = LMConfig(
         diff_mode="auto", max_iterations=40, rel_cost_tol=1e-6
@@ -165,7 +165,7 @@ def test_slam_with_noise_floor_stopping_matches_ate():
     assert ate_slam < ATE_SLAM_BOUND
 
     # and the stopping rule genuinely cuts the per-pair iteration count
-    from moptimizer_0_tpu.odometry import make_registrar
+    from moptimizer_jax.odometry import make_registrar
 
     reg_fast = make_registrar("icp", cfg, nn_backend="grid", max_corr_dist=0.5)
     reg_slow = make_registrar(
@@ -178,8 +178,8 @@ def test_slam_with_noise_floor_stopping_matches_ate():
     r_slow = reg_slow.register(scans[1], scans[0])
     # At this scale in f64 the parity criteria DO fire (tiny √ε steps at
     # full convergence), so the rule can only match or trim iterations
-    # here; the production-scale effect (f32/TPU, 40-iteration burn cut to
-    # ~10 — docs/PERF.md SLAM section) is measured by
+    # here; the production-scale effect (f32 on the device, 40-iteration burn cut to
+    # ~10 — PERF.md SLAM section) is measured by
     # benchmarks/slam_sequence_bench.py.
     assert int(r_fast.iterations) <= int(r_slow.iterations)
     assert int(r_fast.status) == int(Status.CONVERGED)
@@ -189,7 +189,7 @@ def test_slam_with_noise_floor_stopping_matches_ate():
 
 
 def test_wide_spacing_default_pipeline():
-    """Wide-motion robustness is the PIPELINE DEFAULT (VERDICT r4 task 7):
+    """Wide-motion robustness is the PIPELINE DEFAULT:
     at 30°/4.1 m inter-scan motion the single-start coarse pass lands in a
     wrong basin (measured ATE ~12 m) and poisons every constant-velocity
     seed after it; the r5 default — coarse_multistart="auto" → 8 yaw starts

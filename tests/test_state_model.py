@@ -4,11 +4,11 @@
 import jax.numpy as jnp
 import numpy as np
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core import manifold
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.lie import so3
-from moptimizer_0_tpu.models.state import product_state_block
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core import manifold
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.lie import so3
+from moptimizer_jax.models.state import product_state_block
 
 
 def test_product_state_converges_to_anchor():
@@ -97,7 +97,7 @@ def test_manifold_lm_on_product_state():
 def test_sphere_manifold_chart_roundtrip():
     import numpy as np
 
-    from moptimizer_0_tpu.core.manifold import Sphere
+    from moptimizer_jax.core.manifold import Sphere
 
     m = Sphere(dim=4)
     rng = np.random.default_rng(0)
@@ -124,9 +124,9 @@ def test_sphere_manifold_quaternion_fit():
     manifold=Sphere(4): tangent dim 3, unit norm preserved exactly."""
     import numpy as np
 
-    from moptimizer_0_tpu.core.manifold import Sphere
-    from moptimizer_0_tpu.core.residual import make_block, problem
-    from moptimizer_0_tpu.core.solver import LMConfig, levenberg_marquardt
+    from moptimizer_jax.core.manifold import Sphere
+    from moptimizer_jax.core.residual import make_block, problem
+    from moptimizer_jax.core.solver import LMConfig, levenberg_marquardt
 
     def quat_rot(q):
         w, x, y, z = q[0], q[1], q[2], q[3]

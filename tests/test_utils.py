@@ -7,21 +7,22 @@ import pathlib
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-from moptimizer_0_tpu.core.covariance import estimate_covariance
-from moptimizer_0_tpu.core.residual import problem
-from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
-from moptimizer_0_tpu.utils.logging import Logger, L_DEBUG, L_ERROR, format_trace
-from moptimizer_0_tpu.utils.pointcloud import load_txt_cloud
-from moptimizer_0_tpu.utils.stopwatch import Stopwatch, time_jitted
+from moptimizer_jax import LMConfig, levenberg_marquardt
+from moptimizer_jax.core.covariance import estimate_covariance
+from moptimizer_jax.core.residual import problem
+from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+from moptimizer_jax.utils.logging import Logger, L_DEBUG, L_ERROR, format_trace
+from moptimizer_jax.utils.pointcloud import load_txt_cloud
+from moptimizer_jax.utils.stopwatch import Stopwatch, time_jitted
 
 
 def test_covariance_recovery_matches_manual():
     blk = rational_block(SIMPLE_X, SIMPLE_Y, dtype=jnp.float64)
     res = levenberg_marquardt(problem(blk), jnp.array([0.9, 0.2]), LMConfig())
     cov = estimate_covariance(problem(blk), res.x)
-    from moptimizer_0_tpu.core.linearize import linearize
+    from moptimizer_jax.core.linearize import linearize
 
     _, H, _ = linearize(problem(blk), res.x)
     np.testing.assert_allclose(cov, np.linalg.inv(np.asarray(H)), rtol=1e-10)
@@ -76,7 +77,7 @@ def test_cloud_loader():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from moptimizer_0_tpu.utils import checkpoint
+    from moptimizer_jax.utils import checkpoint
 
     blk = rational_block(SIMPLE_X, SIMPLE_Y, dtype=jnp.float64)
     res = levenberg_marquardt(problem(blk), jnp.array([0.9, 0.2]), LMConfig())
@@ -94,7 +95,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_unrolled_cholesky_matches_lapack():
-    from moptimizer_0_tpu.ops.small_solve import cholesky_solve_unrolled
+    from moptimizer_jax.ops.small_solve import cholesky_solve_unrolled
 
     rng = np.random.default_rng(33)
     for P in (2, 4, 6, 15):
@@ -116,8 +117,8 @@ def test_unrolled_solver_in_lm():
 
 def test_checked_linearize_finite_passes():
     """checkify layer: finite problems pass through unchanged."""
-    from moptimizer_0_tpu.core.linearize import linearize
-    from moptimizer_0_tpu.utils.checks import checked_linearize
+    from moptimizer_jax.core.linearize import linearize
+    from moptimizer_jax.utils.checks import checked_linearize
 
     blk = rational_block(SIMPLE_X, SIMPLE_Y, dtype=jnp.float64)
     x = jnp.array([0.9, 0.2])
@@ -134,8 +135,8 @@ def test_checked_linearize_raises_on_nan():
     reference src/levenberg_marquadt_dyn.cpp:88-91)."""
     import pytest
 
-    from moptimizer_0_tpu.core.residual import make_block
-    from moptimizer_0_tpu.utils.checks import checked_linearize
+    from moptimizer_jax.core.residual import make_block
+    from moptimizer_jax.utils.checks import checked_linearize
 
     bad = make_block(
         lambda x, d: jnp.array([jnp.log(x[0] * d[0] - 10.0)]),
@@ -143,3 +144,42 @@ def test_checked_linearize_raises_on_nan():
     )
     with pytest.raises(Exception, match="non-finite"):
         checked_linearize(problem(bad), jnp.ones(2))
+
+
+def test_cache_honours_env_dir(monkeypatch, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR, where set, is the one cache directory."""
+    from moptimizer_jax.utils import cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "jc"))
+    try:
+        assert cache.enable_persistent_cache() == str(tmp_path / "jc")
+        assert jax.config.jax_compilation_cache_dir == str(tmp_path / "jc")
+        assert (tmp_path / "jc").is_dir()
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_cache_default_dir_inside_checkout(monkeypatch):
+    """Without the variable the cache sits at one fixed path in the checkout."""
+    from moptimizer_jax.utils import cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    assert cache.cache_dir() == str(repo / ".jax_cache")
+
+
+def test_roofline_known_device_kind():
+    from moptimizer_jax.utils.profiling import roofline
+
+    r = roofline(1e-3, flops=67e9, bytes_accessed=3.35e6, device_kind="NVIDIA H100 80GB HBM3")
+    assert r["frac_of_peak_flops"] == pytest.approx(1.0)
+    assert r["frac_of_peak_bw"] == pytest.approx(1e-3)
+    assert r["bound"] == "compute"
+
+
+def test_roofline_unknown_device_kind_raises():
+    from moptimizer_jax.utils.profiling import roofline
+
+    with pytest.raises(ValueError, match="no published peaks"):
+        roofline(1.0, flops=1.0, device_kind="some other accelerator")

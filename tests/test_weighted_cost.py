@@ -20,8 +20,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from moptimizer_0_tpu import LMConfig, Status, levenberg_marquardt
-from moptimizer_0_tpu.core.residual import make_block, problem
+from moptimizer_jax import LMConfig, Status, levenberg_marquardt
+from moptimizer_jax.core.residual import make_block, problem
 
 W, G = 400.0, 10.0
 

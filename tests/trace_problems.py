@@ -19,13 +19,13 @@ import numpy as np
 
 
 def _curve_near():
-    from moptimizer_0_tpu.models.curve_fitting import exponential_curve_block
+    from moptimizer_jax.models.curve_fitting import exponential_curve_block
 
     return exponential_curve_block(), jnp.zeros(2, jnp.float64), {}
 
 
 def _curve_far():
-    from moptimizer_0_tpu.models.curve_fitting import exponential_curve_block
+    from moptimizer_jax.models.curve_fitting import exponential_curve_block
 
     return (
         exponential_curve_block(),
@@ -35,7 +35,7 @@ def _curve_far():
 
 
 def _powell():
-    from moptimizer_0_tpu.models.powell import powell_block
+    from moptimizer_jax.models.powell import powell_block
 
     return (
         powell_block(analytic=True),
@@ -45,7 +45,7 @@ def _powell():
 
 
 def _simple_rational():
-    from moptimizer_0_tpu.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
+    from moptimizer_jax.models.rational import SIMPLE_X, SIMPLE_Y, rational_block
 
     return (
         rational_block(SIMPLE_X, SIMPLE_Y, analytic=True, dtype=jnp.float64),
@@ -55,7 +55,7 @@ def _simple_rational():
 
 
 def _camera_calibration():
-    from moptimizer_0_tpu.models.camera import camera_reprojection_block
+    from moptimizer_jax.models.camera import camera_reprojection_block
 
     points = np.array(
         [
@@ -94,8 +94,8 @@ def _accelerometer():
     gravity is unobservable), so the reference's multiplicative λ·diag(H)
     damping leaves the system exactly singular — from a generic start the
     diagonal is positive and LM converges along the observable directions."""
-    from moptimizer_0_tpu.lie import so3
-    from moptimizer_0_tpu.models.accelerometer import GRAVITY, accelerometer_block
+    from moptimizer_jax.lie import so3
+    from moptimizer_jax.models.accelerometer import GRAVITY, accelerometer_block
 
     x_true = jnp.array([0.15, -0.1, 0.2], jnp.float64)
     m = so3.exp(x_true) @ jnp.asarray(GRAVITY, jnp.float64)
@@ -109,7 +109,7 @@ def _accelerometer():
 def _state_model():
     """15-DoF SO(3)×R¹² boxminus state (reference tst/state_model.cpp:83-112,
     anchor rotation Exp(0.1,0.2,0.3), start at its x-vector values)."""
-    from moptimizer_0_tpu.models.state import product_state_block
+    from moptimizer_jax.models.state import product_state_block
 
     anchor_lin = np.concatenate([[-0.4, 0.11, -0.9], np.zeros(9)])
     block = product_state_block(np.array([0.1, 0.2, 0.3]), anchor_lin)
@@ -121,9 +121,9 @@ def _state_model():
 
 
 def _point2point():
-    from moptimizer_0_tpu.lie import se3
-    from moptimizer_0_tpu.models.point2point import point2point_block
-    from moptimizer_0_tpu.utils.pointcloud import load_txt_cloud
+    from moptimizer_jax.lie import se3
+    from moptimizer_jax.models.point2point import point2point_block
+    from moptimizer_jax.utils.pointcloud import load_txt_cloud
 
     data = pathlib.Path(__file__).parent / "data" / "fachada.txt"
     src = jnp.asarray(load_txt_cloud(data).astype(np.float64))
@@ -151,8 +151,8 @@ FIXTURE_DIR = pathlib.Path(__file__).parent / "data" / "traces"
 
 def run_trace(name, mode="fd"):
     """Solve oracle `name` in f64 with `mode`; returns the LMResult."""
-    from moptimizer_0_tpu import LMConfig, levenberg_marquardt
-    from moptimizer_0_tpu.core.residual import problem
+    from moptimizer_jax import LMConfig, levenberg_marquardt
+    from moptimizer_jax.core.residual import problem
 
     builder, _ = PROBLEMS[name]
     block, x0, cfg_kwargs = builder()
